@@ -1,11 +1,11 @@
-"""cmfem_tpu — a TPU-native finite-element framework in JAX.
+"""cmfem_tpu — a finite-element framework in JAX.
 
-A clean-room, TPU-first re-implementation of the capability surface of the
+A clean-room, accelerator-first re-implementation of the capability surface of the
 reference suite ``quinnchr-personal/Continuum-Mechanics-MFEM`` (MFEM + PETSc +
 MPI application drivers for convection-diffusion and charring-ablator
 physics).  Everything is arrays + pure functions: meshes are SoA arrays,
-assembly is batched per-element tensor contractions (B^T D B) that XLA maps
-onto the MXU, solvers are jittable Krylov/Newton loops, and multi-chip runs
+assembly is batched per-element tensor contractions (B^T D B) that XLA
+compiles for the device, solvers are jittable Krylov/Newton loops, and multi-chip runs
 shard the element batch over a ``jax.sharding.Mesh`` with XLA collectives.
 
 Layout (see SURVEY.md §7 for the blueprint):
@@ -28,12 +28,12 @@ import jax
 if os.environ.get("CMFEM_X64", "1") == "1":
     jax.config.update("jax_enable_x64", True)
 
-# True-f32 matmuls everywhere: the TPU MXU's default precision truncates
-# inputs to bf16, which corrupts assembled geometric factors by O(10%) on
-# fine meshes (vertex spacings fall below bf16 resolution: measured 26%
-# error in D at 48^3).  The hot operator paths request HIGHEST explicitly;
-# this covers every assembly/geometry einsum by default.  Opt out per-call
-# with precision=... for kernels that genuinely tolerate bf16.
+# True-f32 matmuls everywhere: a reduced default matmul precision (TF32 on
+# NVIDIA GPUs, bf16 passes elsewhere) keeps ~3 decimal digits, which
+# corrupts assembled geometric factors on fine meshes (vertex spacings
+# fall below that resolution).  The hot operator paths request HIGHEST
+# explicitly; this covers every assembly/geometry einsum by default.  Opt
+# out per-call with precision=... for kernels that genuinely tolerate it.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -23,12 +23,13 @@ import scipy.sparse.linalg as spla
 from .common import (
     check_linear_result, linear_usable, load_newton_config, scan_newton,
     replay_newton_history,
-    parse_args, setup_cpu_if_requested, load_mesh_from_cfg, echo_config,
+    parse_args, load_mesh_from_cfg, echo_config,
     ensure_outdir, num_steps, make_block_linear_solver,
     run_tp_newton_loop, maybe_enable_lattice_residual,
     NewtonStallStats,
     maybe_reorder_strip_mesh,
 )
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml, resolve_path
 from ..io import CsvWriter, VTUCollection
 
@@ -700,7 +701,7 @@ def run_scan(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_ablation_case1.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

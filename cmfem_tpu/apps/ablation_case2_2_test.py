@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import sys
 
-from .common import parse_args, setup_cpu_if_requested, echo_config
+from .common import parse_args, echo_config
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from .ablation_case2_2 import run as run_case2_2
 
@@ -40,7 +41,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_ablation_case2_2.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

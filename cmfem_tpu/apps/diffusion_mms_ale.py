@@ -24,9 +24,10 @@ import sys
 import numpy as np
 
 from .common import (
-    parse_args, setup_cpu_if_requested, load_mesh_from_cfg, echo_config,
+    parse_args, load_mesh_from_cfg, echo_config,
     ensure_outdir, num_steps,
 )
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from ..io import CsvWriter, VTUCollection
 from ..motion.ale import AleMap
@@ -196,7 +197,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_diffusion_mms_ale.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

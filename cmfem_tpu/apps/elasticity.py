@@ -14,8 +14,9 @@ import sys
 
 import numpy as np
 
-from .common import (parse_args, setup_cpu_if_requested, echo_config,
+from .common import (parse_args, echo_config,
                      ensure_outdir, check_standalone_linear)
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from ..io import CsvWriter, VTUCollection
 
@@ -115,7 +116,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_elasticity.yaml", argv)
     cfg = load_yaml(args.input) if os.path.exists(args.input) else {}
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

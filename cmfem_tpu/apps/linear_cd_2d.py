@@ -1,6 +1,6 @@
 """2D steady convection-diffusion-reaction driver (unit square MMS).
 
-TPU-native re-expression of
+Re-expression of
 /root/reference/myapps/convection_diffusion/linear_convection_diffusion_2D.cpp:
   -kappa Lap(u) + div(c u) + s u = f on the unit square, u = u_exact on Gamma,
   u_exact = sin(n pi x) sin(m pi y); same YAML keys, same CSV/ParaView
@@ -15,10 +15,11 @@ import sys
 import numpy as np
 
 from .common import (
-    parse_args, setup_cpu_if_requested, load_mesh_from_cfg, echo_config,
+    parse_args, load_mesh_from_cfg, echo_config,
     ensure_outdir, validate_unit_square, check_standalone_linear,
     make_mg_preconditioner,
 )
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from ..io import CsvWriter, VTUCollection
 
@@ -124,7 +125,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_2d.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

@@ -13,9 +13,10 @@ import sys
 import numpy as np
 
 from .common import (
-    parse_args, setup_cpu_if_requested, load_mesh_from_cfg, echo_config,
+    parse_args, load_mesh_from_cfg, echo_config,
     ensure_outdir, validate_unit_circle, check_standalone_linear,
 )
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from ..io import CsvWriter, VTUCollection
 
@@ -128,7 +129,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input_2d_circle.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

@@ -29,10 +29,11 @@ import numpy as np
 from scipy.special import erfc as _erfc
 
 from .common import (
-    parse_args, setup_cpu_if_requested, load_mesh_from_cfg, echo_config,
+    parse_args, load_mesh_from_cfg, echo_config,
     ensure_outdir, validate_unit_square, x_boundary_attrs, num_steps,
     make_mg_preconditioner,
 )
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.yamlcfg import load_yaml
 from ..io import CsvWriter, VTUCollection
 
@@ -247,7 +248,7 @@ def run(cfg: dict) -> dict:
         # step INCLUDING the Dirichlet schedule and the per-step L2 errors
         # (the erfc solution evaluated with jax.scipy.special.erfc), so the
         # host touches the device once per run instead of once per step —
-        # the TPU-idiomatic form of the reference's stepping loop
+        # the device-resident form of the reference's stepping loop
         # (linear_convection_diffusion_1D.cpp:537-576).
         hi = SpaceOps(fes, max(2, 2 * order + 3))
         xq_x = jnp.asarray(hi.gf.xq[..., 0])
@@ -299,7 +300,7 @@ def run(cfg: dict) -> dict:
 
 
 def main(argv=None):
-    setup_cpu_if_requested()
+    enable_compile_cache()
     args = parse_args("Input/input.yaml", argv)
     cfg = load_yaml(args.input)
     echo_config({k: v for k, v in cfg.items() if not k.startswith("_")})

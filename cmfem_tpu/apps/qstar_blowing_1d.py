@@ -236,10 +236,9 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    import os as _os
-    if _os.environ.get("CMFEM_FORCE_CPU", "0") == "1":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     p = QstarParams(
         num_elements=args.num_elements, newton_max_iter=args.max_iter,

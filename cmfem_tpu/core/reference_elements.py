@@ -1,6 +1,6 @@
 """Reference elements: Lagrange shape functions on segments/tris/quads/hexes.
 
-TPU-first design: shape values ``B`` (nqp, ndof) and reference gradients ``G``
+Accelerator-first design: shape values ``B`` (nqp, ndof) and reference gradients ``G``
 (nqp, ndof, dim) are tabulated once as dense numpy arrays and then used in
 batched per-element contractions on device; there is no per-quadrature-point
 virtual dispatch (the reference evaluates shapes per QP inside MFEM's

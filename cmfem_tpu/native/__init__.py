@@ -2,7 +2,9 @@
 
 The native library provides the runtime pieces the reference implements in
 C++ (Gmsh IO, DOF topology, partitioning); the Python callers fall back to
-their numpy implementations when the library hasn't been built.  Build:
+their numpy implementations when the library cannot be built.  The library
+is built from source on first use, and rebuilt when the source or the
+Makefile is newer than the built file; by hand:
 
     make -C native
 """
@@ -10,6 +12,7 @@ their numpy implementations when the library hasn't been built.  Build:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -20,10 +23,38 @@ _TRIED = False
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "..", "..", "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libcmfem_native.so")
+_LIB_NAME = "libcmfem_native.so"
 
 
-def load_native(build_if_missing: bool = True):
+def is_stale(native_dir: str = _NATIVE_DIR) -> bool:
+    """True when the built library is missing or older than its source or
+    its Makefile."""
+    lib = os.path.join(native_dir, _LIB_NAME)
+    if not os.path.exists(lib):
+        return True
+    return any(os.path.getmtime(lib) < os.path.getmtime(
+        os.path.join(native_dir, f)) for f in ("cmfem_native.cpp", "Makefile"))
+
+
+def build_native(native_dir: str = _NATIVE_DIR) -> str | None:
+    """(Re)build the library if it is stale; return its path, or None when
+    the build fails.  Concurrent callers (test workers) serialize on a
+    lock file, and the new library replaces the old one atomically."""
+    lib = os.path.join(native_dir, _LIB_NAME)
+    try:
+        with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if is_stale(native_dir):
+                tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+                subprocess.run(["make", "-C", native_dir, f"TARGET={tmp}"],
+                               check=True, capture_output=True, timeout=300)
+                os.replace(os.path.join(native_dir, tmp), lib)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return lib
+
+
+def load_native():
     """Return the loaded library or None."""
     global _LIB, _TRIED
     if _LIB is not None:
@@ -31,16 +62,11 @@ def load_native(build_if_missing: bool = True):
     if _TRIED:
         return None
     _TRIED = True
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
+    path = build_native()
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
 

@@ -1,6 +1,6 @@
 """Boundary-face trace evaluation: element fields on boundary faces.
 
-The TPU-native replacement for MFEM's boundary-face machinery
+The replacement for MFEM's boundary-face machinery
 (``GetBdrFaceTransformations`` + per-face shape evaluation used by the
 reference's surface diagnostics and SEB integrator, e.g.
 ablation_test_case1_2D.cpp:634-746, ablation_test_case2_1_2D.cpp:2109-2217).

@@ -1,9 +1,7 @@
 """Window-slicing gather/scatter for tensor-product 2D dof lattices.
 
-Per-element gather (``u[eldofs]``) and segment-sum scatter scalarize on
-TPU — they are the dominant cost of the coupled ablation residual
-(measured: the two gathers + two scatters of a case-1-sized strip cost
-more than all of the TACOT table physics between them).  On the
+Per-element gather (``u[eldofs]``) and segment-sum scatter are
+data-dependent memory accesses in the coupled ablation residual.  On the
 reference's tensor-product strip meshes (Mesh/ablation_strip.geo) the
 element dof pattern is a fixed lattice stencil, so
 

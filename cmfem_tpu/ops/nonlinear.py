@@ -1,6 +1,6 @@
 """Nonlinear forms: QP-level residual functions + AD Jacobians.
 
-TPU-native replacement for MFEM ``(Par)NonlinearForm`` with custom
+Replacement for MFEM ``(Par)NonlinearForm`` with custom
 ``NonlinearFormIntegrator``s.  The reference hand-derives element residuals
 and analytic Jacobians per integrator (e.g. ``NonlinearMassBEIntegrator`` /
 ``NonlinearDiffusionIntegrator``,

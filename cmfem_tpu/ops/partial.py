@@ -1,23 +1,18 @@
-"""Matrix-free partial assembly tuned for TPU: the performance hot path.
-
-The BASELINE.json headline op: y = T^T (B^T D B) T u for order-2/3 hexes,
-target >500 MDOF/s on one v5e chip.  Design (measured on v5e):
+"""Matrix-free partial assembly: y = T^T (B^T D B) T u per element batch.
 
 - **Transposed layout**: all per-element data is (rows, ne) with the element
-  batch in the TPU lane dimension, so every elementwise op is fully vector-
-  ized and the interpolation matmuls have the huge dimension as N.
+  batch as the minor dimension, so every elementwise op is vectorized over
+  elements and the interpolation matmuls have the huge dimension as N.
 - **Lattice gather/scatter** (structured meshes): with lattice DOF
   numbering, the E-vector gather is (p+1)^3 strided slices and the
-  transpose-scatter is (p+1)^3 *disjoint* strided adds — 0.02/0.12 ms vs
-  23/22 ms for scalar gather/segment_sum on TPU at 913k DOFs.
-- **Fused Pallas kernel**: U = BG u_e, V = D U, y_e = BG^T V per element
-  tile entirely in VMEM (the U/V intermediates are 2x the size of D and
-  never touch HBM).  MXU matmuls run at Precision.HIGHEST, giving true-f32
-  results (1.5e-7 rel err vs f64); measured 602 MDOF/s at tile 1024 for
-  order-2 hexes (48^3 mesh) vs 271 MDOF/s for the fused-XLA fallback.
+  transpose-scatter is (p+1)^3 *disjoint* strided adds, in place of a
+  scalar gather and segment_sum.
+- **B^T D B**: U = BG u_e, V = D U, y_e = BG^T V as two matmuls around a
+  pointwise block product, left to XLA to fuse; matmuls run at
+  Precision.HIGHEST (true f32 in float32).
 
 The generic unstructured path (gather + segment_sum) remains available for
-arbitrary meshes; reference parity solves use the f64 XLA path.
+arbitrary meshes; reference parity solves use it in f64.
 """
 
 from __future__ import annotations
@@ -66,65 +61,10 @@ def pack_qp_blocks_T(ops: SpaceOps, data: OperatorData, dtype=jnp.float32,
     return Dflat, jnp.asarray(BG, dtype=dtype)
 
 
-def _pallas_btdb(BG: np.ndarray, nq: int, m: int, tile: int = 1024,
-                 dtype=jnp.float32):
-    """Fused B^T D B element-tile kernel in transposed layout.
+def _xla_btdb(BG: np.ndarray, nq: int, m: int, dtype=jnp.float32):
+    """B^T D B element-batch apply in transposed layout.
 
     apply(u_eT (nd, ne), Dflat (m*m, nq, ne)) -> y_eT (nd, ne)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    HI = jax.lax.Precision.HIGHEST
-    nd = BG.shape[1]
-    nqm = nq * m
-
-    def kernel(bg_ref, bgt_ref, u_ref, d_ref, y_ref):
-        U = jnp.dot(bg_ref[...], u_ref[...],
-                    preferred_element_type=jnp.float32, precision=HI)
-        acc = None
-        for r in range(m):
-            Vr = None
-            for s in range(m):
-                t = d_ref[r * m + s, :, :] * U[s * nq:(s + 1) * nq, :]
-                Vr = t if Vr is None else Vr + t
-            yr = jnp.dot(bgt_ref[..., r * nq:(r + 1) * nq], Vr,
-                         preferred_element_type=jnp.float32, precision=HI)
-            acc = yr if acc is None else acc + yr
-        y_ref[...] = acc.astype(y_ref.dtype)
-
-    BGj = jnp.asarray(BG, dtype)
-    BGTj = jnp.asarray(BG.T.copy(), dtype)
-
-    def apply_fn(u_eT, Dflat):
-        ne = u_eT.shape[1]
-        ne_pad = ((ne + tile - 1) // tile) * tile
-        if ne_pad != ne:
-            u_eT = jnp.pad(u_eT, ((0, 0), (0, ne_pad - ne)))
-            Dflat = jnp.pad(Dflat, ((0, 0), (0, 0), (0, ne_pad - ne)))
-        y = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((nd, ne_pad), dtype),
-            grid=(ne_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((nqm, nd), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((nd, nqm), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((nd, tile), lambda i: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((m * m, nq, tile), lambda i: (0, 0, i),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((nd, tile), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM),
-        )(BGj, BGTj, u_eT, Dflat)
-        return y[:, :ne]
-
-    return apply_fn
-
-
-def _xla_btdb(BG: np.ndarray, nq: int, m: int, dtype=jnp.float32):
-    """Fused-XLA fallback of the same algebra (any platform)."""
     HI = jax.lax.Precision.HIGHEST
     BGj = jnp.asarray(BG, dtype)
 
@@ -146,11 +86,10 @@ def _xla_btdb(BG: np.ndarray, nq: int, m: int, dtype=jnp.float32):
 class PAOperator:
     """Matrix-free operator for an arbitrary (unstructured) mesh.
 
-    Gather/scatter via u[eldofs] / segment_sum; compute via the fused
-    transposed-layout kernel (Pallas on TPU, XLA elsewhere)."""
+    Gather/scatter via u[eldofs] / segment_sum; compute via the
+    transposed-layout B^T D B apply."""
 
-    def __init__(self, ops: SpaceOps, data: OperatorData, dtype=jnp.float32,
-                 use_pallas: bool = False, tile_e: int = 1024):
+    def __init__(self, ops: SpaceOps, data: OperatorData, dtype=jnp.float32):
         self.ops = ops
         self.dtype = dtype
         self.nscalar = ops.fes.nscalar
@@ -160,16 +99,14 @@ class PAOperator:
         self.nq = nq
         self.Dflat, BG = pack_qp_blocks_T(ops, data, dtype)
         self.eldofs = jnp.asarray(ops.fes.element_dofs)
-        builder = _pallas_btdb if use_pallas else _xla_btdb
-        self._apply = builder(np.asarray(BG), nq, self.m,
-                              *( (tile_e, dtype) if use_pallas else (dtype,) ))
+        self._apply = _xla_btdb(np.asarray(BG), nq, self.m, dtype)
 
     def bind(self):
         """Return (fn(u, Dflat, eldofs) -> y, Dflat, eldofs).
 
-        Pass the arrays through jit arguments — capturing multi-hundred-MB
-        constants in a jit closure ships them into the compiled executable
-        (catastrophic under remote compile)."""
+        Pass the arrays through jit arguments: capturing multi-hundred-MB
+        constants in a jit closure embeds them in the compiled
+        executable."""
         nscalar = self.nscalar
         apply_ = self._apply
         dtype = self.dtype
@@ -233,6 +170,32 @@ class StructuredGrid3D:
                 y_eT[idx].reshape(nz, ny, nx))
         return y3.reshape(-1)
 
+    def lattice_index(self, pos) -> np.ndarray:
+        """Lattice DOF index of each entity-numbered DOF from its node
+        position on the unit cube.
+
+        Per-axis indices come from rank within the sorted unique coordinate
+        values, NOT from rounding to a uniform grid: Gauss-Lobatto interior
+        nodes are non-uniform, and uniform rounding collides from order 7
+        up."""
+        pos = np.asarray(pos)
+
+        def axis_index(x, nx):
+            xr = np.round(x, 12)
+            u = np.unique(xr)
+            if len(u) != nx:
+                raise ValueError(
+                    f"lattice recovery found {len(u)} distinct coordinates "
+                    f"for a {nx}-node axis")
+            return np.searchsorted(u, xr)
+
+        lat = (axis_index(pos[:, 2], self.NZ) * self.NY
+               + axis_index(pos[:, 1], self.NY)) * self.NX \
+            + axis_index(pos[:, 0], self.NX)
+        if len(np.unique(lat)) != self.ndofs:
+            raise ValueError("node positions do not form a full lattice")
+        return lat
+
     def boundary_mask(self):
         """Boolean (ndofs,) mask of lattice-boundary DOFs."""
         k, j, i = np.meshgrid(np.arange(self.NZ), np.arange(self.NY),
@@ -250,15 +213,14 @@ class StructuredGrid3D:
 
 
 class StructuredPAOperator:
-    """The benchmark hot path: lattice gather/scatter + fused Pallas BtDB.
+    """Lattice gather/scatter + the B^T D B element-batch apply.
 
     Built from a SpaceOps on a ``make_cartesian_mesh_3d`` mesh; the
     operator acts on lattice-numbered DOF vectors (use `grid` helpers for
     BCs / interpolation)."""
 
     def __init__(self, ops: SpaceOps, data: OperatorData,
-                 grid: StructuredGrid3D, dtype=jnp.float32,
-                 use_pallas: bool = True, tile_e: int = 1024):
+                 grid: StructuredGrid3D, dtype=jnp.float32):
         self.grid = grid
         self.dtype = dtype
         nq = ops.gf.wdetJ.shape[1]
@@ -266,9 +228,7 @@ class StructuredPAOperator:
         self.m = 1 + dim
         self.Dflat, BG = pack_qp_blocks_T(ops, data, dtype,
                                           local_perm=grid.local_perm)
-        builder = _pallas_btdb if use_pallas else _xla_btdb
-        self._apply = builder(np.asarray(BG), nq, self.m,
-                              *((tile_e, dtype) if use_pallas else (dtype,)))
+        self._apply = _xla_btdb(np.asarray(BG), nq, self.m, dtype)
 
     def bind(self):
         """Return (fn(u, Dflat) -> y, Dflat); see PAOperator.bind."""

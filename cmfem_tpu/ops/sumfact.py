@@ -1,11 +1,9 @@
 """Global sum-factorized operator apply for structured hex grids.
 
-The TPU speed-of-light path for the BASELINE headline op.  Per-element
-gather/scatter is pathological on TPU (35/27 ms at 913k DOFs for strided
-lattice slicing; far worse for scalar segment_sum), so this path removes it
-entirely: with a tensor-product grid, interpolation of values and gradients
-to ALL quadrature points is three axis-wise dense matmuls applied to the
-3D DOF lattice (spectral-element sum factorization, operating on the
+The fast path for the 3D operator apply.  Per-element gather/scatter is
+removed entirely: with a tensor-product grid, interpolation of values and
+gradients to ALL quadrature points is three axis-wise dense matmuls applied
+to the 3D DOF lattice (spectral-element sum factorization, operating on the
 global tensor product rather than per element):
 
     V   = Az (x) Ay (x) Ax  u3          (values at every QP)
@@ -14,9 +12,9 @@ global tensor product rather than per element):
 where A/DA are ((n_elem * nq1d), ndof1d) block-banded 1D interpolation
 matrices.  The QP operator blocks D are pre-permuted (static) into the
 same QP-lattice layout, the 4x4 block action is pointwise, and the
-transposed chains assemble y3 directly — matmuls and elementwise ops only,
-all MXU/VPU friendly, no scatter.  All matmuls run at Precision.HIGHEST
-(true-f32; 0/1-structured operands make the selection exact).
+transposed chains assemble y3 directly -- matmuls and elementwise ops only,
+no scatter.  All matmuls run at Precision.HIGHEST (true f32, no TF32;
+0/1-structured operands make the selection exact).
 """
 
 from __future__ import annotations
@@ -136,10 +134,7 @@ class SumFactoredOperator:
         self.D = jnp.asarray(Dl.reshape(mm, self.Kz, self.Ky, self.Kx), dtype)
         # element-periodic D (uniform grid + element-independent
         # coefficients): every element's QP block is identical, so the
-        # lattice D is a (q1, q1, q1) pattern tiled ne times.  The periodic
-        # apply path then never reads D from HBM (the broadcast fuses into
-        # the elementwise multiply) — D traffic is the bandwidth floor of
-        # the generic operator, so this is the speed-of-light variant.
+        # lattice D is a (q1, q1, q1) pattern tiled ne times.
         Dl4 = np.asarray(self.D)
         # Element-to-element variation below the geometric-factor rounding
         # floor counts as uniform: O(1) coordinates differenced into O(1/n)
@@ -147,25 +142,21 @@ class SumFactoredOperator:
         # is eps * max(n) * max|D|, capped at 1e-5 * max|D| so that real
         # (if weak) coefficient variation on very large grids is never
         # classified as uniform.  NOTE the detection cannot distinguish
-        # genuine sub-floor coefficient variation from rounding noise —
+        # genuine sub-floor coefficient variation from rounding noise --
         # bind(use_periodic=True) is an explicit assertion by the caller
         # that the operator is uniform along the tiled axes.
         tol = min(4 * np.finfo(Dl4.dtype).eps * max(nx, ny, nz), 1e-5) \
             * np.abs(Dl4).max()
-        # self.periodic is a DIAGNOSTIC only (full (q1,q1,q1) uniformity):
-        # no apply path consumes the tiny pattern because its 6D broadcast
-        # forces 3-wide minor dims on TPU (measured 127 vs 571 MDOF/s) —
-        # the z-only pattern below is the one bind() actually uses.
+        # self.periodic is a diagnostic only (full (q1,q1,q1) uniformity);
+        # the apply consumes the z-only pattern below.
         D7 = Dl4.reshape(mm, nz, q1, ny, q1, nx, q1).astype(np.float64)
         Dsmall = D7.mean(axis=(1, 3, 5)).astype(Dl4.dtype)  # noise-averaged
         self.periodic = bool(
             np.abs(Dl4 - np.tile(Dsmall, (1, nz, ny, nx))).max() <= tol)
         # z-only periodicity (weaker: uniform z-extrusion with possibly
-        # xy-varying coefficients).  Stored as (mm, q1, Ky, Kx): the
-        # z-broadcast splits only the LEADING axis, so TPU (8, 128) tiling
-        # of the minor dims is untouched — unlike the full (q1,q1,q1)
-        # pattern, whose 6D broadcast forces 3-wide minor dims (measured
-        # 127 vs 571 MDOF/s).  D HBM traffic drops by the factor nz.
+        # xy-varying coefficients), stored as (mm, q1, Ky, Kx): the apply
+        # broadcasts it along a leading element-z axis, so D's device
+        # memory traffic drops by the factor nz.
         D5 = Dl4.reshape(mm, nz, q1, self.Ky, self.Kx).astype(np.float64)
         Dz = D5.mean(axis=1).astype(Dl4.dtype)
         self.z_periodic = bool(
@@ -173,61 +164,42 @@ class SumFactoredOperator:
                    .reshape(Dl4.shape)).max() <= tol)
         self.Dz = jnp.asarray(Dz, dtype) if self.z_periodic else None
 
-    def bind(self, use_pallas: bool = False, tile: int = 256,
-             interpret: bool = False, use_periodic: bool = False,
-             use_fused: bool = False, slab: int = 1, z_fma: bool = False,
-             x_chunks: int = 1):
+    def bind(self, use_periodic: bool = False):
         """(fn(u, D) -> y, D) with all big arrays as jit args.
 
-        use_pallas fuses the z-contraction -> D-apply -> transposed
-        z-contraction inside VMEM (the V/W quadrature fields never touch
-        HBM): measured 574 -> 673 MDOF/s at order 2, 913k DOFs on v5e.
-        Requires the compressed packing and Ky*Kx % tile == 0.
-        interpret runs the kernel in pallas interpret mode (CPU testing).
-
         use_periodic replaces the full lattice D with the z-periodic
-        (mm, q1, Ky, Kx) pattern (requires ``self.z_periodic``): the
-        z-broadcast fuses into the elementwise multiply, cutting the D HBM
-        read — the dominant traffic of the generic apply — by the factor
-        nz while keeping TPU-friendly minor-dim layouts."""
+        (mm, q1, Ky, Kx) pattern (requires ``self.z_periodic`` and the
+        compressed packing): the quadrature fields are viewed as
+        (nz, q1, Ky, Kx) so the pattern broadcasts along the leading z
+        axis inside the elementwise multiply, and only q1 z-planes of D
+        are read per apply instead of Kz."""
         if use_periodic and not (self.z_periodic and self.compressed):
             raise ValueError(
                 "periodic sumfact path requires z-periodic compressed "
                 "D (uniform z-extrusion, z-uniform coefficients)")
-        if use_fused:
-            if not self.compressed:
-                raise ValueError("fused sumfact path requires compressed D")
-            if z_fma:
-                return self._bind_fused_zfma(interpret,
-                                             periodic=use_periodic,
-                                             slab=slab, x_chunks=x_chunks)
-            return self._bind_fused(interpret, periodic=use_periodic,
-                                    slab=slab, x_chunks=x_chunks)
-        if use_periodic and not use_pallas:
-            return self._bind_periodic(), self.Dz
-        if use_pallas:
-            if not self.compressed:
-                raise ValueError("pallas sumfact path requires compressed D")
-            mm = self.D.shape[0]
-            KK = self.Ky * self.Kx
-            D_arg = (self.Dz.reshape(mm, self.q1, KK) if use_periodic
-                     else self.D.reshape(mm, self.Kz, KK))
-            return self._bind_pallas(tile, interpret,
-                                     periodic=use_periodic), D_arg
         Ax, DAx = self.Ax, self.DAx
         Ay, DAy = self.Ay, self.DAy
         Az, DAz = self.Az, self.DAz
         NX, NY, NZ = self.NX, self.NY, self.NZ
+        Kz, Ky, Kx = self.Kz, self.Ky, self.Kx
         m = self.m
+        if use_periodic:
+            qp_shape = (self.n[2], self.q1, Ky, Kx)
+            plane = lambda D, i: D[i][None]
+        else:
+            qp_shape = (Kz, Ky, Kx)
+            plane = lambda D, i: D[i]
 
         def fwd(u3, Mx, My, Mz):
             # contract each axis in turn: (NZ,NY,NX) -> (Kz,Ky,Kx)
             t = jnp.einsum("ax,zyx->zya", Mx, u3, precision=HI)
             t = jnp.einsum("by,zya->zba", My, t, precision=HI)
-            return jnp.einsum("cz,zba->cba", Mz, t, precision=HI)
+            t = jnp.einsum("cz,zba->cba", Mz, t, precision=HI)
+            return t.reshape(qp_shape)
 
-        def bwd(w3, Mx, My, Mz):
-            t = jnp.einsum("cz,cba->zba", Mz, w3, precision=HI)
+        def bwd(w, Mx, My, Mz):
+            t = jnp.einsum("cz,cba->zba", Mz, w.reshape(Kz, Ky, Kx),
+                           precision=HI)
             t = jnp.einsum("by,zba->zya", My, t, precision=HI)
             return jnp.einsum("ax,zya->zyx", Mx, t, precision=HI)
 
@@ -239,18 +211,18 @@ class SumFactoredOperator:
                 fwd(u3, Ax, DAy, Az),    # d/dxi_y
                 fwd(u3, Ax, Ay, DAz),    # d/dxi_z
             ]
+            pl = lambda i: plane(D, i)
             if self.compressed:
                 # planes: [D00, D0x.., upper-tri Dss]; d10 = 0; Dss symmetric
-                W = [D[0] * V[0]]
+                W = [pl(0) * V[0]]
                 for s in range(1, m):
-                    W[0] = W[0] + D[s] * V[s]
+                    W[0] = W[0] + pl(s) * V[s]
                 Wg = [None] * (m - 1)
                 for k, (r, s) in enumerate(self._pairs):
-                    plane = D[m + k]
-                    t = plane * V[s]
+                    t = pl(m + k) * V[s]
                     Wg[r - 1] = t if Wg[r - 1] is None else Wg[r - 1] + t
                     if s != r:
-                        t2 = plane * V[r]
+                        t2 = pl(m + k) * V[r]
                         Wg[s - 1] = t2 if Wg[s - 1] is None \
                             else Wg[s - 1] + t2
                 W += Wg
@@ -259,7 +231,7 @@ class SumFactoredOperator:
                 for r in range(m):
                     acc = None
                     for s in range(m):
-                        t = D[r * m + s] * V[s]
+                        t = pl(r * m + s) * V[s]
                         acc = t if acc is None else acc + t
                     W.append(acc)
             y3 = bwd(W[0], Ax, Ay, Az)
@@ -268,624 +240,26 @@ class SumFactoredOperator:
             y3 = y3 + bwd(W[3], Ax, Ay, DAz)
             return y3.reshape(-1)
 
-        return fn, self.D
+        return fn, (self.Dz if use_periodic else self.D)
 
-    def best_bind(self, platform=None):
-        """(fn, D_arg): the fastest eligible apply variant for ``platform``
-        (default: the current default backend).
+    def best_bind(self):
+        """(fn, D_arg): the faster of the two apply paths.
 
-        Measured ranking on v5e (BENCH_r02, 913k DOFs order 2): fused slab
-        kernel 897 > pallas z-fused 728 > plain XLA chain 571 MDOF/s.  The
-        fused kernel streams one y-slab of D through VMEM, so it is gated
-        on the double-buffered slab footprint (5.1MB compiles, 5.9MB
-        exhausts VMEM on v5e); the pallas path needs the lattice tile to
-        divide Ky*Kx.  Anything else (CPU, uncompressed D) falls back to
-        the generic bind."""
-        if platform is None:
-            platform = jax.default_backend()
-        if platform == "tpu" and self.compressed:
-            isz = self.D.dtype.itemsize
-            if self.z_periodic:
-                # FMA z-stage + z-periodic D: best measured path at every
-                # order (1141/1815/1770 vs 927/1252/1404 for the plain
-                # fused kernel, BENCH artifact).  Gate on the live QP-field
-                # footprint (~14 (NZ, q1*Kx) arrays in VMEM).
-                fields = 14 * self.NZ * self.q1 * self.Kx * isz
-                if fields <= 10_000_000:
-                    return self.bind(use_fused=True, use_periodic=True,
-                                     z_fma=True)
-            d_slab = self.D.shape[0] * self.Kz * self.q1 * self.Kx * isz
-            if d_slab <= 5_300_000:
-                return self.bind(use_fused=True)
-            for cx in (2, 3, 4, 6, 8):
-                # stream the D slab in x-column chunks (measured 1286 vs
-                # 1084 MDOF/s for the pallas z-chain at order-3 48^3)
-                if self.Kx % cx == 0 and d_slab <= cx * 5_300_000:
-                    return self.bind(use_fused=True, x_chunks=cx)
-            if (self.Ky * self.Kx) % 256 == 0:
-                return self.bind(use_pallas=True, tile=256)
-        return self.bind()
+        The z-periodic path reads nz times less of D; measured on an
+        H100 80GB HBM3 (700 W) it is 4-6% faster than the plain chain at
+        orders 2, 3 and 4, from 0.9M to 11.4M DOFs (PERF.md).  It
+        applies only to a z-periodic, compressed operator; anything else
+        takes the plain ``bind()``."""
+        return self.bind(use_periodic=self.z_periodic and self.compressed)
 
-    def _bind_periodic(self):
-        """Apply with the z-tiled D pattern: identical math to the generic
-        path, but the quadrature fields are viewed as (nz, q1, Ky, Kx) so
-        the (q1, Ky, Kx) D planes broadcast along the leading z axis — XLA
-        fuses the broadcast into the multiply and only q1 z-planes of D
-        stream from HBM."""
-        Ax, DAx = self.Ax, self.DAx
-        Ay, DAy = self.Ay, self.DAy
-        Az, DAz = self.Az, self.DAz
-        NX, NY, NZ = self.NX, self.NY, self.NZ
-        nz = self.n[2]
-        q1 = self.q1
-        m = self.m
-        Ky, Kx = self.Ky, self.Kx
-
-        def fwd(u3, Mx, My, Mz):
-            t = jnp.einsum("ax,zyx->zya", Mx, u3, precision=HI)
-            t = jnp.einsum("by,zya->zba", My, t, precision=HI)
-            t = jnp.einsum("cz,zba->cba", Mz, t, precision=HI)
-            return t.reshape(nz, q1, Ky, Kx)
-
-        def bwd(w4, Mx, My, Mz):
-            w3 = w4.reshape(nz * q1, Ky, Kx)
-            t = jnp.einsum("cz,cba->zba", Mz, w3, precision=HI)
-            t = jnp.einsum("by,zba->zya", My, t, precision=HI)
-            return jnp.einsum("ax,zya->zyx", Mx, t, precision=HI)
-
-        def fn(u, D):
-            u3 = u.astype(self.dtype).reshape(NZ, NY, NX)
-            pl = lambda i: D[i][None]
-            V = [
-                fwd(u3, Ax, Ay, Az),
-                fwd(u3, DAx, Ay, Az),
-                fwd(u3, Ax, DAy, Az),
-                fwd(u3, Ax, Ay, DAz),
-            ]
-            W = [pl(0) * V[0]]
-            for s in range(1, m):
-                W[0] = W[0] + pl(s) * V[s]
-            Wg = [None] * (m - 1)
-            for k, (r, s) in enumerate(self._pairs):
-                plane = pl(m + k)
-                t = plane * V[s]
-                Wg[r - 1] = t if Wg[r - 1] is None else Wg[r - 1] + t
-                if s != r:
-                    t2 = plane * V[r]
-                    Wg[s - 1] = t2 if Wg[s - 1] is None else Wg[s - 1] + t2
-            W += Wg
-            y3 = bwd(W[0], Ax, Ay, Az)
-            y3 = y3 + bwd(W[1], DAx, Ay, Az)
-            y3 = y3 + bwd(W[2], Ax, DAy, Az)
-            y3 = y3 + bwd(W[3], Ax, Ay, DAz)
-            return y3.reshape(-1)
-
-        return fn
-
-    def _bind_fused(self, interpret: bool = False, periodic: bool = False,
-                    slab: int = 1, x_chunks: int = 1):
-        """Whole-operator fusion: ONE Pallas kernel per y-element slab does
-        the x-interpolation, y-interpolation (unrolled scalar FMAs — the
-        1D basis is a (q1, p+1) constant), z-contraction, D application,
-        and all three transposed chains, so every quadrature-point field
-        lives only in VMEM.  HBM traffic collapses to: read the (p+1)-row
-        u slab + this slab's D planes, write the (p+1)-row partial output
-        (overlap-added across slabs with regular slices outside).  With
-        use_periodic the D read drops by the factor nz as well, leaving
-        the apply essentially MXU-bound.
-
-        Grid = ny/slab slabs of ``slab`` y-elements; adjacent slabs share
-        one dof row, so the x-chain work on shared rows is duplicated —
-        a small flop overhead bought for zero gather/scatter and zero
-        QP-field HBM traffic.  slab > 1 widens every matmul's N dimension
-        by the factor slab (fewer, fatter MXU calls) at the cost of
-        slab x the VMEM footprint.
-
-        x_chunks > 1 streams the D slab (the VMEM-limiting array) in
-        x-column chunks as a second, sequential grid dimension: every
-        QP-stage array shrinks by the factor C (the u slab's block index
-        is c-invariant, so Pallas keeps it resident across chunks), and
-        the partial (NZ, TP1*NX) outputs accumulate in the revisited out
-        block.  This keeps the fused kernel available when
-        the full D slab exceeds VMEM (non-periodic high order / large n,
-        e.g. order-3 48^3: 5.9MB slab -> 2x 2.95MB chunks)."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        p, p1, q1 = self.p, self.p + 1, self.q1
-        nx, ny, nz = self.n
-        NX, NZ = self.NX, self.NZ
-        Kz, Kx = self.Kz, self.Kx
-        m = self.m
-        mm = self.D.shape[0]
-        pairs = self._pairs
-        dtype = self.dtype
-        B1, G1, _ = _lagrange_tab_1d(p, q1)
-        Bc = [[float(B1[q, a]) for a in range(p1)] for q in range(q1)]
-        Gc = [[float(G1[q, a]) for a in range(p1)] for q in range(q1)]
-        T = int(slab)
-        if ny % T:
-            raise ValueError(f"slab={T} must divide ny={ny}")
-        G_ = ny // T
-        TQ = T * q1                       # y-QP rows per slab
-        TP = T * p                        # owned dof rows per slab
-        TP1 = TP + 1                      # loaded dof rows per slab
-        C = int(x_chunks)
-        if C < 1 or Kx % C:
-            raise ValueError(f"x_chunks={C} must divide Kx={Kx}")
-        Kxc = Kx // C
-
-        if periodic:
-            Dre = np.asarray(self.Dz).reshape(mm, q1, G_, TQ, Kx)
-            d_rows = q1
-        else:
-            Dre = np.asarray(self.D).reshape(mm, Kz, G_, TQ, Kx)
-            d_rows = Kz
-        # (G_, C, mm*d_rows, TQ*Kxc): grid-major slab, then x chunk
-        Dre = Dre.transpose(2, 0, 1, 3, 4) \
-            .reshape(G_, mm, d_rows, TQ, C, Kxc) \
-            .transpose(0, 4, 1, 2, 3, 5) \
-            .reshape(G_, C, mm * d_rows, TQ * Kxc)
-        D_arg = jnp.asarray(Dre, dtype)
-
-        def dot(a, b):
-            return jnp.dot(a, b, preferred_element_type=dtype, precision=HI)
-
-        def ycon(ts, Cw):
-            # TP1 (NZ, Kxc) dof rows -> (NZ, TQ*Kxc) y-QP rows in (t, q)
-            # order (matching the D slab grouping), compile-time weights
-            cols = []
-            for t in range(T):
-                for q in range(q1):
-                    acc = Cw[q][0] * ts[t * p]
-                    for a in range(1, p1):
-                        acc = acc + Cw[q][a] * ts[t * p + a]
-                    cols.append(acc)
-            return jnp.concatenate(cols, axis=1)
-
-        def kernel(axT_ref, daxT_ref, ax_ref, dax_ref, az_ref, azt_ref,
-                   daz_ref, dazt_ref, u_ref, d_ref, y_ref):
-            if C > 1:
-                # accumulate partial x-chunk outputs in the revisited block
-                @pl.when(pl.program_id(1) == 0)
-                def _init():
-                    y_ref[...] = jnp.zeros_like(y_ref)
-            # per-dof-row x contraction via static lane slices (lane-dim
-            # reshapes are unsupported relayouts in Mosaic)
-            u = u_ref[0]                              # (NZ, TP1*NX)
-            t0xa, txxa = [], []
-            for a in range(TP1):
-                ua = u[:, a * NX:(a + 1) * NX]
-                t0xa.append(dot(ua, axT_ref[0]))
-                txxa.append(dot(ua, daxT_ref[0]))
-            t0y = ycon(t0xa, Bc)                      # (NZ, TQ*Kxc) value
-            txy = ycon(txxa, Bc)                      # d/dxi_x
-            tyy = ycon(t0xa, Gc)                      # d/dxi_y
-            Azl = az_ref[...]
-            V = [dot(Azl, t0y), dot(Azl, txy), dot(Azl, tyy),
-                 dot(daz_ref[...], t0y)]              # (Kz, TQ*Kxc)
-            Dl = d_ref[0, 0].reshape(mm, d_rows, TQ * Kxc)
-            if periodic:
-                V = [v.reshape(nz, q1, TQ * Kxc) for v in V]
-                pl_ = lambda i: Dl[i][None]
-            else:
-                pl_ = lambda i: Dl[i]
-            W0 = pl_(0) * V[0]
-            for s in range(1, m):
-                W0 = W0 + pl_(s) * V[s]
-            Wg = [None] * (m - 1)
-            for k, (r, s) in enumerate(pairs):
-                plane = pl_(m + k)
-                t = plane * V[s]
-                Wg[r - 1] = t if Wg[r - 1] is None else Wg[r - 1] + t
-                if s != r:
-                    t2 = plane * V[r]
-                    Wg[s - 1] = t2 if Wg[s - 1] is None else Wg[s - 1] + t2
-            if periodic:
-                W0 = W0.reshape(Kz, TQ * Kxc)
-                Wg = [w.reshape(Kz, TQ * Kxc) for w in Wg]
-            Azt = azt_ref[...]
-            U0 = dot(Azt, W0) + dot(dazt_ref[...], Wg[2])  # (NZ, TQ*Kxc)
-            Ux = dot(Azt, Wg[0])
-            Uy = dot(Azt, Wg[1])
-            # transposed y stage (global dof row r sums the B[q,a]
-            # value+x chains and G[q,a] y-gradient chain over every
-            # (t, q) with a = r - t*p in range) + transposed x contraction
-            for r_ in range(TP1):
-                acc0 = accx = None
-                for t in range(T):
-                    a = r_ - t * p
-                    if a < 0 or a > p:
-                        continue
-                    for q in range(q1):
-                        sl = slice((t * q1 + q) * Kxc,
-                                   (t * q1 + q + 1) * Kxc)
-                        c0 = Bc[q][a] * U0[:, sl] + Gc[q][a] * Uy[:, sl]
-                        cx = Bc[q][a] * Ux[:, sl]
-                        acc0 = c0 if acc0 is None else acc0 + c0
-                        accx = cx if accx is None else accx + cx
-                ya = dot(acc0, ax_ref[0]) + dot(accx, dax_ref[0])
-                sl_out = slice(r_ * NX, (r_ + 1) * NX)
-                if C > 1:
-                    y_ref[0, :, sl_out] = y_ref[0, :, sl_out] + ya
-                else:
-                    y_ref[0, :, sl_out] = ya
-
-        # x basis matrices pre-split by chunk: (C, NX, Kxc) / (C, Kxc, NX)
-        AxT = jnp.asarray(np.asarray(self.Ax.T)
-                          .reshape(NX, C, Kxc).transpose(1, 0, 2))
-        DAxT = jnp.asarray(np.asarray(self.DAx.T)
-                           .reshape(NX, C, Kxc).transpose(1, 0, 2))
-        Axm = jnp.asarray(np.asarray(self.Ax).reshape(C, Kxc, NX))
-        DAxm = jnp.asarray(np.asarray(self.DAx).reshape(C, Kxc, NX))
-        Az = jnp.asarray(self.Az)
-        DAz = jnp.asarray(self.DAz)
-
-        def fn(u, Dr):
-            u3 = u.astype(dtype).reshape(NZ, self.NY, NX)
-            u_slabs = jnp.stack(
-                [u3[:, j * TP:j * TP + TP1, :] for j in range(G_)]
-            ).reshape(G_, NZ, TP1 * NX)
-            vm = pl.BlockSpec(memory_space=pltpu.VMEM)
-            xspec = lambda sh: pl.BlockSpec(
-                (1,) + sh, lambda j, c: (c, 0, 0), memory_space=pltpu.VMEM)
-            outs = pl.pallas_call(
-                kernel,
-                out_shape=jax.ShapeDtypeStruct((G_, NZ, TP1 * NX), dtype),
-                grid=(G_, C),
-                in_specs=[
-                    xspec((NX, Kxc)), xspec((NX, Kxc)),
-                    xspec((Kxc, NX)), xspec((Kxc, NX)),
-                ] + [vm] * 4 + [
-                    pl.BlockSpec((1, NZ, TP1 * NX), lambda j, c: (j, 0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((1, 1, mm * d_rows, TQ * Kxc),
-                                 lambda j, c: (j, c, 0, 0),
-                                 memory_space=pltpu.VMEM),
-                ],
-                out_specs=pl.BlockSpec((1, NZ, TP1 * NX),
-                                       lambda j, c: (j, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=("arbitrary", "arbitrary")),
-                interpret=interpret,
-            )(AxT, DAxT, Axm, DAxm, Az, Az.T, DAz, DAz.T, u_slabs, Dr)
-            ysl = outs.reshape(G_, NZ, TP1, NX)
-            base = jnp.transpose(ysl[:, :, :TP, :], (1, 0, 2, 3))
-            last = jnp.transpose(ysl[:, :, TP, :], (1, 0, 2))
-            base = base.at[:, 1:, 0, :].add(last[:, :-1, :])
-            y3 = jnp.concatenate(
-                [base.reshape(NZ, G_ * TP, NX), last[:, -1:, :]], axis=1)
-            return y3.reshape(-1)
-
-        return fn, D_arg
-
-    def _bind_fused_zfma(self, interpret: bool = False,
-                         periodic: bool = False, slab: int = 1,
-                         x_chunks: int = 1):
-        """Whole-operator fusion with FMA z-stages (v2 of the fused slab
-        kernel): the 1D z basis is block-banded — each z-QP touches only
-        p+1 dof planes — so the dense (Kz, NZ) z-contraction matmuls of
-        ``_bind_fused`` waste a factor NZ/(p+1) of MXU flops.  Here the
-        grid is pre-slabbed in z as well (duplicated element-boundary
-        planes, overlap-added with regular slices outside), and the z
-        stages become unrolled compile-time FMAs like the y stages.  The
-        only matmuls left are the x-axis contractions.  Every in-kernel
-        array is a 2D (nz, lanes) block — fields are kept as Python
-        lists over the small basis indices, so there are no strided
-        slices, no 3D sublane padding, and no stacks."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        p, p1, q1 = self.p, self.p + 1, self.q1
-        nx, ny, nz = self.n
-        NX, NZ = self.NX, self.NZ
-        Kx = self.Kx
-        m = self.m
-        mm = self.D.shape[0]
-        pairs = self._pairs
-        dtype = self.dtype
-        B1, G1, _ = _lagrange_tab_1d(p, q1)
-        Bc = [[float(B1[q, a]) for a in range(p1)] for q in range(q1)]
-        Gc = [[float(G1[q, a]) for a in range(p1)] for q in range(q1)]
-        T = int(slab)
-        if ny % T:
-            raise ValueError(f"slab={T} must divide ny={ny}")
-        G_ = ny // T
-        TQ = T * q1
-        TP = T * p
-        TP1 = TP + 1
-        C = int(x_chunks)
-        if C < 1 or Kx % C:
-            raise ValueError(f"x_chunks={C} must divide Kx={Kx}")
-        Kxc = Kx // C
-        L = TQ * Kxc                       # QP lanes per slab chunk
-        LIN = TP1 * NX                     # dof lanes per slab
-
-        if periodic:
-            Dre = np.asarray(self.Dz).reshape(mm, q1, G_, TQ, Kx)
-            Dre = Dre.transpose(2, 0, 1, 3, 4)
-            d_zrows = q1
-        else:
-            Dre = np.asarray(self.D).reshape(mm, nz, q1, G_, TQ, Kx)
-            Dre = Dre.transpose(3, 0, 1, 2, 4, 5)
-            d_zrows = nz * q1
-        # (G_, C, mm*d_zrows, TQ*Kxc): grid-major slab, then x chunk
-        Dre = Dre.reshape(G_, mm * d_zrows, TQ, C, Kxc) \
-            .transpose(0, 3, 1, 2, 4).reshape(G_, C, mm * d_zrows, L)
-        D_arg = jnp.asarray(Dre, dtype)
-
-        def dot(a, b):
-            return jnp.dot(a, b, preferred_element_type=dtype, precision=HI)
-
-        def kernel(axT_ref, daxT_ref, ax_ref, dax_ref, u_ref, d_ref,
-                   y_ref):
-            if C > 1:
-                # accumulate partial x-chunk outputs in the revisited block
-                @pl.when(pl.program_id(1) == 0)
-                def _init():
-                    y_ref[...] = jnp.zeros_like(y_ref)
-            u = u_ref[0]                   # (nz, p1, LIN)
-            # x contraction per (z-dof az, y-dof a): (nz, NX) @ (NX, Kxc)
-            t0x = [[dot(u[:, az, a * NX:(a + 1) * NX], axT_ref[0])
-                    for a in range(TP1)] for az in range(p1)]
-            txx = [[dot(u[:, az, a * NX:(a + 1) * NX], daxT_ref[0])
-                    for a in range(TP1)] for az in range(p1)]
-
-            def ycon(ts, C):
-                # TP1 (nz, Kx) -> (nz, L) in (t, q) lane order
-                cols = []
-                for t in range(T):
-                    for q in range(q1):
-                        acc = C[q][0] * ts[t * p]
-                        for a in range(1, p1):
-                            acc = acc + C[q][a] * ts[t * p + a]
-                        cols.append(acc)
-                return jnp.concatenate(cols, axis=1)
-
-            t0y = [ycon(t0x[az], Bc) for az in range(p1)]   # value
-            txy = [ycon(txx[az], Bc) for az in range(p1)]   # d/dxi_x
-            tyy = [ycon(t0x[az], Gc) for az in range(p1)]   # d/dxi_y
-
-            def zcon(ts, C, q):
-                acc = C[q][0] * ts[0]
-                for az in range(1, p1):
-                    acc = acc + C[q][az] * ts[az]
-                return acc
-
-            # per-z-QP fields and D application, all (nz, L)
-            Dl = d_ref[0, 0].reshape(mm, d_zrows, L)
-            U0 = [None] * p1
-            Ux = [None] * p1
-            Uy = [None] * p1
-            for q in range(q1):
-                V = [zcon(t0y, Bc, q), zcon(txy, Bc, q),
-                     zcon(tyy, Bc, q), zcon(t0y, Gc, q)]
-                if periodic:
-                    pl_ = lambda i: Dl[i, q][None]      # (1, L) broadcast
-                else:
-                    pl_ = lambda i: Dl[i].reshape(nz, q1, L)[:, q]
-                W0 = pl_(0) * V[0]
-                for s in range(1, m):
-                    W0 = W0 + pl_(s) * V[s]
-                Wg = [None] * (m - 1)
-                for k, (r, s) in enumerate(pairs):
-                    plane = pl_(m + k)
-                    t = plane * V[s]
-                    Wg[r - 1] = t if Wg[r - 1] is None else Wg[r - 1] + t
-                    if s != r:
-                        t2 = plane * V[r]
-                        Wg[s - 1] = t2 if Wg[s - 1] is None \
-                            else Wg[s - 1] + t2
-                # transposed z FMAs accumulate into the p1 dof planes
-                for az in range(p1):
-                    c0 = Bc[q][az] * W0 + Gc[q][az] * Wg[2]
-                    cx = Bc[q][az] * Wg[0]
-                    cy = Bc[q][az] * Wg[1]
-                    U0[az] = c0 if U0[az] is None else U0[az] + c0
-                    Ux[az] = cx if Ux[az] is None else Ux[az] + cx
-                    Uy[az] = cy if Uy[az] is None else Uy[az] + cy
-
-            # transposed y FMAs + per-row transposed x contraction
-            for az in range(p1):
-                for r_ in range(TP1):
-                    acc0 = accx = None
-                    for t in range(T):
-                        a = r_ - t * p
-                        if a < 0 or a > p:
-                            continue
-                        for q in range(q1):
-                            sl = slice((t * q1 + q) * Kxc,
-                                       (t * q1 + q + 1) * Kxc)
-                            c0 = Bc[q][a] * U0[az][:, sl] \
-                                + Gc[q][a] * Uy[az][:, sl]
-                            cx = Bc[q][a] * Ux[az][:, sl]
-                            acc0 = c0 if acc0 is None else acc0 + c0
-                            accx = cx if accx is None else accx + cx
-                    ya = dot(acc0, ax_ref[0]) + dot(accx, dax_ref[0])
-                    sl_out = slice(r_ * NX, (r_ + 1) * NX)
-                    if C > 1:
-                        y_ref[0, :, az, sl_out] = \
-                            y_ref[0, :, az, sl_out] + ya
-                    else:
-                        y_ref[0, :, az, sl_out] = ya
-
-        # x basis matrices pre-split by chunk: (C, NX, Kxc) / (C, Kxc, NX)
-        AxT = jnp.asarray(np.asarray(self.Ax.T)
-                          .reshape(NX, C, Kxc).transpose(1, 0, 2))
-        DAxT = jnp.asarray(np.asarray(self.DAx.T)
-                           .reshape(NX, C, Kxc).transpose(1, 0, 2))
-        Axm = jnp.asarray(np.asarray(self.Ax).reshape(C, Kxc, NX))
-        DAxm = jnp.asarray(np.asarray(self.DAx).reshape(C, Kxc, NX))
-
-        def fn(u, Dr):
-            u3 = u.astype(dtype).reshape(NZ, self.NY, NX)
-            u_y = jnp.stack(
-                [u3[:, j * TP:j * TP + TP1, :] for j in range(G_)])
-            u_zy = jnp.stack(
-                [u_y[:, k * p:k * p + p1] for k in range(nz)], axis=1)
-            u_slabs = u_zy.reshape(G_, nz, p1, LIN)
-            xspec = lambda sh: pl.BlockSpec(
-                (1,) + sh, lambda j, c: (c, 0, 0), memory_space=pltpu.VMEM)
-            outs = pl.pallas_call(
-                kernel,
-                out_shape=jax.ShapeDtypeStruct((G_, nz, p1, LIN), dtype),
-                grid=(G_, C),
-                in_specs=[
-                    xspec((NX, Kxc)), xspec((NX, Kxc)),
-                    xspec((Kxc, NX)), xspec((Kxc, NX)),
-                    pl.BlockSpec((1, nz, p1, LIN),
-                                 lambda j, c: (j, 0, 0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((1, 1, mm * d_zrows, L),
-                                 lambda j, c: (j, c, 0, 0),
-                                 memory_space=pltpu.VMEM),
-                ],
-                out_specs=pl.BlockSpec((1, nz, p1, LIN),
-                                       lambda j, c: (j, 0, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=("arbitrary", "arbitrary")),
-                interpret=interpret,
-            )(AxT, DAxT, Axm, DAxm, u_slabs, Dr)
-            ysl = outs.reshape(G_, nz, p1, TP1, NX)
-            # z overlap-add (duplicated element-boundary planes)
-            bz = ysl[:, :, :p]
-            lz = ysl[:, :, p]
-            bz = bz.at[:, 1:, 0].add(lz[:, :-1])
-            yz = jnp.concatenate(
-                [bz.reshape(G_, nz * p, TP1, NX), lz[:, -1:]], axis=1)
-            # y overlap-add (shared slab-boundary rows)
-            base = jnp.transpose(yz[:, :, :TP, :], (1, 0, 2, 3))
-            last = jnp.transpose(yz[:, :, TP, :], (1, 0, 2))
-            base = base.at[:, 1:, 0, :].add(last[:, :-1, :])
-            y3 = jnp.concatenate(
-                [base.reshape(NZ, G_ * TP, NX), last[:, -1:, :]], axis=1)
-            return y3.reshape(-1)
-
-        return fn, D_arg
-
-    def _bind_pallas(self, tile: int, interpret: bool = False,
-                     periodic: bool = False):
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        Ax, DAx, Ay, DAy = self.Ax, self.DAx, self.Ay, self.DAy
-        Az = jnp.asarray(self.Az)
-        DAz = jnp.asarray(self.DAz)
-        NX, NY, NZ = self.NX, self.NY, self.NZ
-        Kz, Ky, Kx = self.Kz, self.Ky, self.Kx
-        nz = self.n[2]
-        q1 = self.q1
-        m = self.m
-        mm = self.D.shape[0]
-        pairs = self._pairs
-        dtype = self.dtype
-        KK = Ky * Kx
-        if KK % tile:
-            raise ValueError(f"Ky*Kx={KK} must divide by tile={tile}")
-        d_rows = q1 if periodic else Kz
-
-        def kernel(az_ref, azt_ref, daz_ref, dazt_ref, t0_ref, tx_ref,
-                   ty_ref, d_ref, u0_ref, ux_ref, uy_ref):
-            Azl = az_ref[...]
-            Azt = azt_ref[...]
-            V = [
-                jnp.dot(Azl, t0_ref[...],
-                        preferred_element_type=dtype, precision=HI),
-                jnp.dot(Azl, tx_ref[...],
-                        preferred_element_type=dtype, precision=HI),
-                jnp.dot(Azl, ty_ref[...],
-                        preferred_element_type=dtype, precision=HI),
-                jnp.dot(daz_ref[...], t0_ref[...],
-                        preferred_element_type=dtype, precision=HI),
-            ]
-            Dl = d_ref[...]
-            if periodic:
-                # D holds q1 z-rows; broadcast over the nz element blocks.
-                # V/W stay in (nz, q1, tile) through the whole D stage —
-                # leading-axis reshapes only at entry/exit (layout-free).
-                V = [v.reshape(nz, q1, tile) for v in V]
-                pl_ = lambda i: Dl[i][None]
-            else:
-                pl_ = lambda i: Dl[i]
-            W0 = pl_(0) * V[0]
-            for s in range(1, m):
-                W0 = W0 + pl_(s) * V[s]
-            Wg = [None] * (m - 1)
-            for k, (r, s) in enumerate(pairs):
-                plane = pl_(m + k)
-                t = plane * V[s]
-                Wg[r - 1] = t if Wg[r - 1] is None else Wg[r - 1] + t
-                if s != r:
-                    t2 = plane * V[r]
-                    Wg[s - 1] = t2 if Wg[s - 1] is None else Wg[s - 1] + t2
-            if periodic:
-                W0 = W0.reshape(Kz, tile)
-                Wg = [w.reshape(Kz, tile) for w in Wg]
-            # value and z-gradient outputs share the same (Ax, Ay)
-            # back-chain, so their z-stages are summed HERE — 3 outputs
-            # instead of 4 (one full HBM round-trip + xy chain saved)
-            u0_ref[...] = (
-                jnp.dot(Azt, W0, preferred_element_type=dtype, precision=HI)
-                + jnp.dot(dazt_ref[...], Wg[2],
-                          preferred_element_type=dtype, precision=HI))
-            ux_ref[...] = jnp.dot(Azt, Wg[0],
-                                  preferred_element_type=dtype,
-                                  precision=HI)
-            uy_ref[...] = jnp.dot(Azt, Wg[1],
-                                  preferred_element_type=dtype,
-                                  precision=HI)
-
-        def fn(u, Dr):
-            u3 = u.astype(dtype).reshape(NZ, NY, NX)
-
-            def xy(Mx, My):
-                t = jnp.einsum("ax,zyx->zya", Mx, u3, precision=HI)
-                return jnp.einsum("by,zya->zba", My, t,
-                                  precision=HI).reshape(NZ, KK)
-
-            # the value and z-gradient fields share the same x/y chain
-            T0 = xy(Ax, Ay)
-            Tx = xy(DAx, Ay)
-            Ty = xy(Ax, DAy)
-            outs = pl.pallas_call(
-                kernel,
-                out_shape=[jax.ShapeDtypeStruct((NZ, KK), dtype)] * 3,
-                grid=(KK // tile,),
-                in_specs=[
-                    pl.BlockSpec((Kz, NZ), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((NZ, Kz), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((Kz, NZ), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((NZ, Kz), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((NZ, tile), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((NZ, tile), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((NZ, tile), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((mm, d_rows, tile), lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM),
-                ],
-                out_specs=[pl.BlockSpec((NZ, tile), lambda i: (0, i),
-                                        memory_space=pltpu.VMEM)] * 3,
-                interpret=interpret,
-            )(Az, Az.T, DAz, DAz.T, T0, Tx, Ty, Dr)
-            U0, Uxx, Uyy = [o.reshape(NZ, Ky, Kx) for o in outs]
-
-            def xyt(U, Mx, My):
-                t = jnp.einsum("by,zba->zya", My, U, precision=HI)
-                return jnp.einsum("ax,zya->zyx", Mx, t, precision=HI)
-
-            y3 = (xyt(U0, Ax, Ay) + xyt(Uxx, DAx, Ay)
-                  + xyt(Uyy, Ax, DAy))
-            return y3.reshape(-1)
-
-        return fn
+    def min_bytes(self, periodic: bool = False) -> int:
+        """Least device-memory traffic of one apply: read D (or its
+        z-periodic pattern) and u, write y.  Quadrature-point fields are
+        counted as never leaving the chip, so achieved bytes/s from this
+        model is a lower bound on the true traffic rate."""
+        D = self.Dz if periodic else self.D
+        return int(D.size * D.dtype.itemsize
+                   + 2 * self.ndofs * np.dtype(self.dtype).itemsize)
 
     def __call__(self, u):
         fn, D = self.bind()

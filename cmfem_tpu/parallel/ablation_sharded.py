@@ -1,6 +1,6 @@
 """Element-sharded ablation (T, p) Newton step over a device mesh.
 
-Multichip version of the flagship coupled pyrolysis solve: the TPU-native
+Multi-device version of the flagship coupled pyrolysis solve: the
 replacement for running the reference's ablation drivers under
 ``mpirun -np N`` (MPI domain decomposition over mesh elements +
 MUMPS-backed Newton, SURVEY.md §2.4 / §3.4).  Each device owns a

@@ -1,6 +1,6 @@
 """Element partitioning for device meshes.
 
-The TPU analog of ParMesh's METIS partitioning (SURVEY.md §2.4): assign
+The analog of ParMesh's METIS partitioning (SURVEY.md §2.4): assign
 elements to devices with spatial locality so shared-DOF exchange stays
 cheap.  Recursive coordinate bisection (RCB) over element centroids, using
 the native C++ kernel when built and a numpy fallback otherwise.

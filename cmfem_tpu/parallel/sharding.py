@@ -1,6 +1,6 @@
 """Multi-chip operator apply: elements sharded over a device mesh.
 
-The TPU-native replacement for the reference's MPI domain decomposition
+The replacement for the reference's MPI domain decomposition
 (``ParMesh`` + true-dof halo exchange, SURVEY.md §2.4): the element batch is
 the data-parallel axis.  Each device owns a contiguous slab of elements and
 the full (replicated) DOF vector; an operator apply is

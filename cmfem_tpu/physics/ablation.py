@@ -1,6 +1,6 @@
 """Coupled (T, p) porous-medium pyrolysis system (ablation case 1+).
 
-Clean-room TPU-native re-implementation of the reference's
+Clean-room re-implementation of the reference's
 ``AblationTPIntegrator`` + ``ReactionStateManager``
 (/root/reference/myapps/convection_diffusion/ablation_test_case1_2D.cpp:264-615):
 
@@ -80,10 +80,9 @@ class AblationSystem:
 
     def set_dof_lattice(self, lat):
         """Enable the window-slicing residual path for tensor-product strip
-        meshes: per-element gather and segment_sum scalarize on TPU and are
-        ~2/3 of the residual wall-clock, so on a dof lattice they become
-        static window slices / overlap-adds (ops/lattice2d.py — the same
-        trick solvers/blocksolve.py plays for the GMRES matvec).  Raises
+        meshes: on a dof lattice the per-element gather and segment_sum
+        become static window slices / overlap-adds (ops/lattice2d.py — the
+        same trick solvers/blocksolve.py plays for the GMRES matvec).  Raises
         ValueError when the mesh elements are not row-major over the cell
         lattice (callers fall back to the generic path)."""
         from ..ops.lattice2d import StripLatticeOps

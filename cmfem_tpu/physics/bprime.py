@@ -212,8 +212,8 @@ class BPrimeTable:
         bg_q = jnp.clip(bg, bg_min, bg_max)
         clamped_bg = (bg < bg_min) | (bg > bg_max)
         bgs_j = jnp.asarray(bgs)
-        # vectorized-comparison interval + one-hot selection (per-query
-        # gathers scalarize on TPU; see tacot.spline_eval)
+        # vectorized-comparison interval + one-hot selection (see
+        # tacot.spline_eval)
         hj = jnp.clip(jnp.sum(bg_q[..., None] > bgs_j, axis=-1), 1, Lbg - 1)
         lj = hj - 1
         oh_lj = (lj[..., None] == jnp.arange(Lbg))

@@ -30,7 +30,8 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import yaml
+
+from ..utils.yamlcfg import yaml_safe_load
 
 
 def natural_spline_y2(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -66,13 +67,10 @@ def spline_eval(x, y, y2, xq):
     Returns (value, deriv, clamped); outside [x0, xN] the end value is
     returned with deriv = 0 (reference EvalClampWithDerivative).
 
-    TPU note: the interval lookup is vectorized comparisons + a one-hot
+    The interval lookup is vectorized comparisons + a one-hot
     contraction against the (nT-1, 4) stacked knot table instead of
-    searchsorted + four gathers — dynamic per-query gathers lower to
-    scalarized loads on TPU (measured ~30 ms per table eval at 150k QPs,
-    dominating the ablation residual), while the one-hot matmul is
-    MXU/VPU work.  Results are bit-identical: the interval index
-    reproduces searchsorted-left semantics exactly.
+    searchsorted + four gathers.  Results are bit-identical: the interval
+    index reproduces searchsorted-left semantics exactly.
     """
     x = jnp.asarray(x)
     n = x.shape[0]
@@ -134,9 +132,7 @@ def spline_eval_multi(x, ys, y2s, xq):
     ONE (nqp, nT-1) @ (nT-1, 4L) matmul; above
     CMFEM_SPLINE_ONEHOT_MAX one-hot entries the leading query axis is
     additionally CHUNKED through a sequential ``lax.map`` so peak
-    memory stays bounded regardless of problem size (plain index
-    gathers are no escape — XLA:TPU's gather expander lowers small-
-    table gathers back into exactly these one-hot dots)."""
+    memory stays bounded regardless of problem size."""
     x = jnp.asarray(x)
     n = x.shape[0]
     xq_in = jnp.asarray(xq)
@@ -342,8 +338,8 @@ class PropertyTable:
         p0 = jnp.sum(ps * (lo[..., None] == jnp.arange(L)), axis=-1)
         p1 = jnp.sum(ps * (hi[..., None] == jnp.arange(L)), axis=-1)
         w = (pc - p0) / (p1 - p0)
-        # one-hot level selection (L is tiny; per-query gathers scalarize
-        # on TPU, masked sums stay vectorized)
+        # one-hot level selection (L is tiny; masked sums stay
+        # vectorized)
         oh_lo = (lo[..., None] == jnp.arange(L))
         oh_hi = (hi[..., None] == jnp.arange(L))
 
@@ -523,7 +519,7 @@ class TacotMaterial:
     @classmethod
     def load_yaml(cls, path: str) -> "TacotMaterial":
         with open(path) as f:
-            root = yaml.safe_load(f)
+            root = yaml_safe_load(f)
         for key in ("constants", "phases", "transport", "reactions", "tables"):
             if key not in root:
                 raise ValueError(

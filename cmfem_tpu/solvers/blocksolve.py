@@ -1,6 +1,6 @@
 """On-device Newton-Krylov solves for the 2x2 (T, p) block Jacobians.
 
-TPU-native replacement for the reference's MUMPS direct solves of the
+Replacement for the reference's MUMPS direct solves of the
 ablation Newton systems (Input/petsc_ablation*.opts: `-ksp_type preonly
 -pc_type lu -pc_factor_mat_solver_type mumps`; dispatch in
 newton_petsc_solver.hpp:269-342).  Instead of materializing a global
@@ -20,7 +20,7 @@ element-block form produced by `AblationSystem.element_jacobians` /
   this nonsymmetric system — measured relerr 0.97 after 1000 its vs
   convergence without it.)
 - the operator apply is a batched (ne, 2nd, 2nd) @ (ne, 2nd) matmul plus
-  a segment-sum scatter (MXU/VPU friendly, no sparse formats);
+  a segment-sum scatter (dense batched work, no sparse formats);
 - the outer solve is the jittable restarted GMRES from
   ``cmfem_tpu.solvers.krylov``.
 
@@ -188,8 +188,7 @@ class BlockNewtonKrylov:
         stencil of 2x2 field blocks per dof (9-point at order 1, 25-point
         at order 2, ...), so the GMRES matvec becomes shifted-window
         multiplies over the (NY, NX) grid — no per-iteration gather or
-        segment_sum, both of which scalarize on TPU (measured 91 ms ->
-        see bench ablation section).  The assembly scatter runs once per
+        segment_sum.  The assembly scatter runs once per
         Jacobian rebuild inside ``prepare``.
         """
         self.lattice = None
@@ -224,8 +223,8 @@ class BlockNewtonKrylov:
         # dof stencil AND elements are row-major over the cell lattice
         # (make_cartesian_mesh_2d; GMSH strips after the lattice_residual
         # renumbering), the per-rebuild stencil assembly becomes nd^2
-        # shifted overlap-adds instead of a (4*ne*nd^2)-entry segment_sum
-        # (which scalarizes on TPU).
+        # shifted overlap-adds instead of a (4*ne*nd^2)-entry
+        # segment_sum.
         kab = None
         offab = off_idx.reshape(ed.shape[0], self.nd, self.nd)
         if (offab == offab[0]).all():
@@ -327,8 +326,8 @@ class BlockNewtonKrylov:
 
     def _gather(self, x):
         if self.wlat is not None:
-            # one n-gather per field + static window stacks (TPU: per-
-            # element gather scalarizes, windows do not)
+            # one n-gather per field + static window stacks in place of
+            # a per-element gather
             return jnp.concatenate(
                 [self.wlat.gather_elem(self.wlat.to_lat(x[:self.n])),
                  self.wlat.gather_elem(self.wlat.to_lat(x[self.n:]))],
@@ -414,7 +413,7 @@ class BlockNewtonKrylov:
 
 class BlockTridiagDirect(BlockNewtonKrylov):
     """Exact block-tridiagonal direct solver for strip dof lattices —
-    the TPU-native analog of the reference's MUMPS LU
+    the analog of the reference's MUMPS LU
     (Input/petsc_ablation*.opts: -ksp_type preonly -pc_type lu).
 
     On an (NY, NX) dof lattice whose assembled stencil couples adjacent

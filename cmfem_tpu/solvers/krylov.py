@@ -1,6 +1,6 @@
 """Jittable Krylov solvers: preconditioned CG and restarted GMRES.
 
-TPU-native replacement for the PETSc KSP solves the reference performs
+Replacement for the PETSc KSP solves the reference performs
 (GMRES+Jacobi in Input/petsc.opts, GMRES+BJacobi/ILU in petsc_nonlinear.opts,
 CG in mesh_recession_handler.cpp:270-276).  Everything is
 ``lax.while_loop``-based with static shapes, so the solves stay on device

@@ -3,9 +3,9 @@ x-semicoarsened multigrid with exact y-line smoothing.
 
 The reference solves every ablation Newton system with a distributed
 direct LU (MUMPS, Input/petsc_ablation*.opts), which is refinement-
-insensitive by construction.  The TPU-native point-block GMRES
+insensitive by construction.  The point-block GMRES
 (solvers/blocksolve.py) measured iteration growth ~2.7x per uniform
-refinement (artifacts_blocksolve_refinement.json) — the classic
+refinement (scripts/blocksolve_refinement.py) — the classic
 h-dependence of a point preconditioner.  This module supplies the
 h-robust replacement for lattice (strip) systems:
 
@@ -26,7 +26,7 @@ h-robust replacement for lattice (strip) systems:
 - everything operates on the canonical (3, 3, NY, NX, 2, 2) DIA
   stencil (|oy| <= 1, |ox| <= 1 — order-1 quad AND tri strips), so a
   v-cycle is shifted-window multiplies + batched small matmuls: no
-  gathers, no segment-sums, TPU-friendly throughout.
+  gathers, no segment-sums.
 
 The cycle is a FIXED linear operator (static sweep counts), hence a
 valid left preconditioner for the non-flexible GMRES in

@@ -1,6 +1,6 @@
 """Geometric multigrid for the structured sum-factorized operators.
 
-The TPU-native replacement for the reference's algebraic-multigrid /
+The replacement for the reference's algebraic-multigrid /
 ILU-type PETSc preconditioner configurations (Input/petsc*.opts): on
 tensor-product lattices every multigrid ingredient is a 1D-matrix axis
 contraction —
@@ -46,32 +46,10 @@ def _interp_1d(xc: np.ndarray, xf: np.ndarray) -> np.ndarray:
 
 
 def _lattice_diag(fes: FESpace, form, data, grid: StructuredGrid3D):
-    """Operator diagonal permuted from entity numbering to the lattice.
-
-    Per-axis indices come from rank within the sorted unique coordinate
-    values, NOT from rounding to a uniform grid: Gauss-Lobatto interior
-    nodes are non-uniform, and uniform rounding silently collides from
-    order 7 up (leaving zero diagonal slots -> 1/diag = inf in the
-    smoother)."""
-    diag = np.asarray(form.assemble_diagonal(data))
-    pos = np.asarray(fes.node_positions)
-
-    def axis_index(x, nx):
-        xr = np.round(x, 12)
-        u = np.unique(xr)
-        if len(u) != nx:
-            raise ValueError(
-                f"lattice recovery found {len(u)} distinct coordinates "
-                f"for a {nx}-node axis")
-        return np.searchsorted(u, xr)
-
-    lat = (axis_index(pos[:, 2], grid.NZ) * grid.NY
-           + axis_index(pos[:, 1], grid.NY)) * grid.NX \
-        + axis_index(pos[:, 0], grid.NX)
-    if len(np.unique(lat)) != grid.ndofs:
-        raise ValueError("node positions do not form a full lattice")
+    """Operator diagonal permuted from entity numbering to the lattice."""
     out = np.zeros(grid.ndofs)
-    out[lat] = diag
+    out[grid.lattice_index(fes.node_positions)] = np.asarray(
+        form.assemble_diagonal(data))
     return out
 
 
@@ -318,10 +296,7 @@ class StructuredMG:
         arrays = []
         for k, lvl in enumerate(self.levels):
             # the V-cycle spends ~8 level-0 applies per iteration in the
-            # smoothers, so the FINE level rides its fastest kernel
-            # variant; coarse levels keep the plain bind — their applies
-            # are cheap and the fused kernel costs ~30s of Mosaic compile
-            # per level, which would swamp setup for a 6-level hierarchy
+            # smoothers, so the FINE level takes its faster apply path
             fn, D = (lvl["op"].best_bind() if k == 0 else lvl["op"].bind())
             fns.append(fn)
             arrays.append((D, lvl["diag"], lvl["mask"],

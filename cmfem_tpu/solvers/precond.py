@@ -3,7 +3,7 @@
 These replace the PETSc PC configurations the reference selects via option
 files (`-pc_type jacobi` in Input/petsc.opts, block-Jacobi/ILU in
 petsc_nonlinear.opts).  Chebyshev gives a stronger, matmul-only polynomial
-preconditioner that maps well onto TPU (no triangular solves)."""
+preconditioner that maps well onto accelerators (no triangular solves)."""
 
 from __future__ import annotations
 

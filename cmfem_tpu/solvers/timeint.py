@@ -9,8 +9,7 @@ stiffly-accurate, L-stable SDIRK schemes of orders 2 and 3
 (Alexander 1977).  Because every stage of an SDIRK scheme shares the
 single diagonal coefficient gamma, all stage solves go through ONE
 operator M + gamma*dt*K — no re-assembly, no shape changes, and the
-whole multi-stage step traces into a single XLA program, which is the
-TPU-friendly shape (the stage count is a compile-time constant, so the
+whole multi-stage step traces into a single XLA program (the stage count is a compile-time constant, so the
 stage loop unrolls).
 
 For the semi-discrete linear system

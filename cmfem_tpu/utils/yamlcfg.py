@@ -11,7 +11,17 @@ from __future__ import annotations
 
 import os
 
-import yaml
+
+def yaml_safe_load(stream):
+    """``yaml.safe_load``, importing PyYAML only when a deck is read, so
+    that the package itself does not need it."""
+    try:
+        import yaml
+    except ModuleNotFoundError as e:
+        raise ModuleNotFoundError(
+            "reading a YAML deck needs the PyYAML package, which is not "
+            "installed") from e
+    return yaml.safe_load(stream)
 
 
 def load_yaml(path: str) -> dict:
@@ -20,7 +30,7 @@ def load_yaml(path: str) -> dict:
     if not os.path.exists(path):
         raise FileNotFoundError(f"YAML input file not found: {path}")
     with open(path) as f:
-        data = yaml.safe_load(f) or {}
+        data = yaml_safe_load(f) or {}
     if not isinstance(data, dict):
         raise ValueError(
             f"YAML input must be a mapping of config keys, got "

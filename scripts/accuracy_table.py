@@ -10,7 +10,7 @@ analytic-solution driver on identical meshes/configs:
   col C  f32 solution's rel-L2 deviation from the f64 oracle field
 
 plus the ablation case-1 smoke deck (no analytic solution; col C only).
-Run the f64 mode first (CPU), then the f32 mode on the TPU:
+Run the f64 mode first (CPU), then the f32 mode on the GPU:
 
   python scripts/accuracy_table.py f64     # CPU oracle, /tmp/acc_ref.npz
   python scripts/accuracy_table.py f32     # current platform -> artifact
@@ -98,9 +98,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     else:
         os.environ.setdefault("CMFEM_X64", "0")
-        if os.environ.get("CMFEM_FORCE_CPU", "0") == "1":
-            import jax
-            jax.config.update("jax_platforms", "cpu")
     import jax
     import numpy as np
 

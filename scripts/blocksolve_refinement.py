@@ -2,7 +2,7 @@
 
 The reference solves every ablation Newton system with a distributed
 direct LU (MUMPS, Input/petsc_ablation*.opts) because the coupled (T, p)
-block system is badly conditioned (~1e9 scale disparity).  The TPU-native
+block system is badly conditioned (~1e9 scale disparity).  The
 replacement is the equilibrated 2x2 point-block GMRES
 (solvers/blocksolve.py).  This study measures its restart cycles and
 TOTAL inner Krylov iterations on the case-2.2 system at 1x/2x/4x strip
@@ -212,9 +212,6 @@ def run_study(refinements=(0, 1, 2, 3), rtol=1e-6, dt=0.0025,
 
 
 def main():
-    if os.environ.get("CMFEM_FORCE_CPU", "0") == "1":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     refs = tuple(int(a) for a in sys.argv[1:]) or (0, 1, 2, 3)
     study = run_study(refinements=refs)
     path = os.path.join(REPO, "artifacts_blocksolve_refinement.json")

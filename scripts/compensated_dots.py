@@ -12,7 +12,7 @@ Dirichlet walls) is solved three ways —
   plain  : f32 CG, jnp.vdot                   (mode "f32")
   comp   : f32 CG, solvers.krylov.neumaier_dot (mode "f32")
 and the f32 solutions' rel-L2 deviation from the oracle plus their CG
-iteration counts are reported.  Run mode "f32" on the TPU for the on-chip
+iteration counts are reported.  Run mode "f32" on the GPU for the on-device
 numbers.
 
   python scripts/compensated_dots.py oracle   # CPU, writes /tmp/cd_ref.npz
@@ -66,9 +66,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     else:
         os.environ.setdefault("CMFEM_X64", "0")
-        if os.environ.get("CMFEM_FORCE_CPU", "0") == "1":
-            import jax
-            jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     import numpy as np

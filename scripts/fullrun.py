@@ -1,7 +1,7 @@
 """Full-horizon production-deck runner (VERDICT r2 next-round #1).
 
 Runs the VERBATIM reference production decks end-to-end on the current
-JAX platform (the TPU chip in production; CPU also works):
+JAX platform (the GPU by default; ``--cpu`` for the CPU):
 
   case1   : Input/input_ablation_case1.yaml     60 s, dt=0.1   ->   600 steps
   case2_1 : Input/input_ablation_case2_1.yaml  120 s, dt=0.1   -> 1,200 steps
@@ -18,7 +18,7 @@ scan path's per-(branch,chemistry) program segmentation.
 Writes artifacts_fullrun_<case>.json at the repo root: wall-clock,
 per-step Newton statistics, temperature bounds, pyrolysis-front motion,
 recession history (2.2), minimum mesh quality (2.2), and physics-sanity
-booleans that tests/test_fullrun_artifacts.py asserts.
+booleans.
 
 Usage:
   python scripts/fullrun.py case1 [--t-final X] [--output-every N] [--cpu]
@@ -183,21 +183,18 @@ def main():
     if args.x64:
         os.environ["CMFEM_X64"] = "1"
     if args.cpu or args.summarize_only:
-        # summarize-only must never contend for the chip (another run may
-        # still hold it); it only reads CSVs
-        os.environ["CMFEM_FORCE_CPU"] = "1"
+        # summarize-only must never contend for the accelerator (another
+        # run may still hold it); it only reads CSVs
+        os.environ["JAX_PLATFORMS"] = "cpu"
 
     import importlib
 
-    from cmfem_tpu.apps.common import setup_cpu_if_requested
-    setup_cpu_if_requested()
+    from cmfem_tpu.utils.compile_cache import enable_compile_cache
+
     import jax
 
-    # persistent compile cache: 48k-step runs must not pay re-compiles
-    cache = os.path.join(REPO, ".jax_cache")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    # persistent compile cache: long runs must not pay re-compiles
+    enable_compile_cache()
 
     from cmfem_tpu.utils.yamlcfg import load_yaml
 

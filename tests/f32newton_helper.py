@@ -4,8 +4,8 @@ Run as: python f32newton_helper.py {32|64} /path/out.npz
 Builds the small case-1 TACOT strip, runs 8 undamped Newton iterates of one
 implicit step through the on-device equilibrated block-GMRES path
 (``BlockNewtonKrylov``), and saves the final (T, p) fields + residual
-history.  The 32 mode is the TPU-resident configuration (CMFEM_X64=0, pure
-f32 — TPU has no native f64); 64 is the parity oracle.
+history.  The 32 mode is the pure-f32 device configuration (CMFEM_X64=0);
+64 is the parity oracle.
 """
 import os
 import sys

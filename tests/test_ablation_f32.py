@@ -1,7 +1,7 @@
-"""f32 (TPU-resident) ablation Newton parity vs the f64 oracle.
+"""f32 ablation Newton parity vs the f64 oracle.
 
-VERDICT round-1 missing item #2: the flagship coupled (T, p) physics must
-run on the actual TPU chip, which has no native f64.  The enabling pieces
+The flagship coupled (T, p) physics must also run in pure f32, the fast
+precision of an accelerator.  The enabling pieces
 are (a) symmetric diagonal equilibration + the 2x2 point-block PC, which
 collapse the system's ~1e9 conditioning spread to ~2e5 (f32-solvable), and
 (b) the Givens-rotation GMRES in ``solvers.krylov`` whose progressive QR
@@ -9,7 +9,7 @@ never feeds post-breakdown noise columns into the triangular solve (a
 terminal f32 lstsq over all restart columns produced garbage directions).
 
 The subprocess pair exists because x64 is a process-global JAX switch: the
-32 run is executed with CMFEM_X64=0 exactly as a TPU run would be.
+32 run is executed with CMFEM_X64=0 exactly as an f32 device run would be.
 """
 
 import subprocess

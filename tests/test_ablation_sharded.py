@@ -371,8 +371,8 @@ def test_case21_and_case22_drivers_sharded_match_lu():
 
 def test_sharded_padding_preserves_f32(small_problem):
     """Element/geometry padding must not promote f32 factors to f64: a
-    dtype-less zeros pad would (x64 is globally on), and on a real TPU
-    (no native f64) the padded f32 run would then fail outright."""
+    dtype-less zeros pad would (x64 is globally on), silently turning
+    an f32 device run into an f64 one."""
     import jax
     import jax.numpy as jnp
 

@@ -244,9 +244,9 @@ def test_rcb_partition_balanced_and_local():
 
 
 def test_default_matmul_precision_is_highest():
-    """Importing cmfem_tpu must pin true-f32 matmuls globally: the TPU MXU
-    default truncates operands to bf16, which corrupted assembled geometric
-    factors by 26% at 48^3 (vertex spacings below bf16 resolution)."""
+    """Importing cmfem_tpu must pin true-f32 matmuls globally: a reduced
+    default precision (TF32 on NVIDIA GPUs) truncates operands, which
+    corrupts assembled geometric factors on fine meshes."""
     import jax
     import cmfem_tpu  # noqa: F401
 

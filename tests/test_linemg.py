@@ -3,8 +3,7 @@
 The h-robust replacement for the point-block PC on strip lattices
 (VERDICT r4 #1): x-semicoarsened multigrid with exact y-line smoothing
 inside the equilibrated block GMRES.  The real-Jacobian refinement
-evidence lives in scripts/blocksolve_refinement.py
-(artifacts_blocksolve_refinement.json); these tests pin correctness
+evidence comes from scripts/blocksolve_refinement.py; these tests pin correctness
 against a dense oracle and iteration growth on PDE-structured systems.
 """
 
@@ -77,7 +76,7 @@ def test_linemg_matches_dense_oracle():
 def test_linemg_h_robust_on_pde_system():
     """Inner-iteration counts must stay essentially flat under uniform
     refinement (the point-block PC measured ~2.7x growth per level on
-    the real system — artifacts_blocksolve_refinement.json)."""
+    the real system, scripts/blocksolve_refinement.py)."""
     import jax.numpy as jnp
 
     from cmfem_tpu.core import FESpace, make_cartesian_mesh_2d

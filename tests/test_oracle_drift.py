@@ -1,8 +1,8 @@
 """f64-oracle drift bounds for the full-horizon production artifacts.
 
 The committed artifacts_oracle_drift_<case>.json files (produced by
-scripts/oracle_compare.py from an f64 CPU oracle run vs the TPU f32
-full-horizon CSVs) are the end-to-end accuracy anchor the reference
+scripts/oracle_compare.py from an f64 CPU oracle run vs an accelerator
+f32 full-horizon run) are the end-to-end accuracy anchor the reference
 realizes via FIAT/Amaryllis comparison (compare_ablation_case1.py:
 176-243); FIAT/Amaryllis data are unavailable here, so the anchor is
 precision-vs-precision on the same decks (VERDICT r4 missing #1).
@@ -28,7 +28,7 @@ def load(case):
 
 
 def test_case1_fullrun_drift_bounds():
-    """600 steps / 60 s: TPU f32 vs CPU f64 on the verbatim deck.
+    """600 steps / 60 s: accelerator f32 vs CPU f64 on the verbatim deck.
 
     Measured (round 5): probes <= 3.1e-6 of range (~0.3 mK absolute),
     fronts <= 1.8e-6 of range (nanometres), mdot_g 0.22% of range.
@@ -46,7 +46,7 @@ def test_case1_fullrun_drift_bounds():
 
 def test_case2_2_segment_drift_bounds():
     """>= 1/4-horizon case-2.2 segment (12,000 steps / 30 s) with real
-    recession on the tri strip: TPU f32 vs CPU f64.
+    recession on the tri strip: accelerator f32 vs CPU f64.
 
     Bounds are looser than case 1: the moving-mesh pipeline adds
     recession-velocity lumping, ALE remap, and mesh-motion feedback to

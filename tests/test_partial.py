@@ -61,8 +61,7 @@ def test_structured_operator_matches_unstructured(order):
     u_lat[lat] = u_ent
 
     y_ref = np.asarray(form.apply(data, jnp.asarray(u_ent)))
-    sop = StructuredPAOperator(ops, data, grid, dtype=jnp.float64,
-                               use_pallas=False)
+    sop = StructuredPAOperator(ops, data, grid, dtype=jnp.float64)
     y_lat = np.asarray(sop(jnp.asarray(u_lat)))
     np.testing.assert_allclose(y_lat[lat], y_ref, rtol=1e-11, atol=1e-11)
 
@@ -115,38 +114,10 @@ def test_sumfact_matches_reference_apply(order):
     np.testing.assert_allclose(y_lat[lat] / scale, y_ref / scale, atol=1e-13)
 
 
-def test_sumfact_pallas_fused_matches_xla():
-    """The VMEM-fused pallas z-chain (interpret mode on CPU) is exact vs
-    the plain XLA sum-factorized path."""
-    from cmfem_tpu.ops.sumfact import SumFactoredOperator
-
-    n, order = 4, 2
-    mesh = make_cartesian_mesh_3d(n, n, n)
-    fes = FESpace(mesh, order)
-    ops = SpaceOps(fes, quad_order=2 * order)
-    form = (BilinearForm(ops)
-            .add_diffusion(0.3)
-            .add_convection(np.array([1.0, -2.0, 0.5]))
-            .add_mass(1.0))
-    data = form.assemble()
-    sfop = SumFactoredOperator(ops, data, n, n, n, order, dtype=jnp.float64)
-    assert sfop.compressed
-
-    rng = np.random.default_rng(2)
-    u = jnp.asarray(rng.standard_normal(sfop.ndofs))
-    fn, D = sfop.bind()
-    y_ref = np.asarray(fn(u, D))
-    # Ky*Kx = 144 here; tile must divide it
-    fnp, Dp = sfop.bind(use_pallas=True, tile=72, interpret=True)
-    y_pl = np.asarray(fnp(u, Dp))
-    scale = np.abs(y_ref).max()
-    np.testing.assert_allclose(y_pl / scale, y_ref / scale, atol=1e-13)
-
-
 def test_sumfact_periodic_paths_match_generic():
-    """z-periodic D compression (XLA and pallas-interpret variants) is
-    exact vs the generic lattice-D apply on a uniform grid, and the
-    periodicity detector rejects variable-coefficient operators."""
+    """z-periodic D compression is exact vs the generic lattice-D apply
+    on a uniform grid, and the periodicity detector rejects
+    variable-coefficient operators."""
     import jax.numpy as jnp
 
     from cmfem_tpu.ops.sumfact import SumFactoredOperator
@@ -172,11 +143,6 @@ def test_sumfact_periodic_paths_match_generic():
     fnp, Dp = sfop.bind(use_periodic=True)
     np.testing.assert_allclose(np.asarray(fnp(u, Dp)) / scale,
                                y_ref / scale, atol=1e-13)
-    # Ky*Kx = 12*9 = 108; tile must divide it
-    fnpp, Dpp = sfop.bind(use_pallas=True, tile=54, interpret=True,
-                          use_periodic=True)
-    np.testing.assert_allclose(np.asarray(fnpp(u, Dpp)) / scale,
-                               y_ref / scale, atol=1e-13)
 
     # variable coefficient -> not periodic, and the periodic bind refuses
     import jax
@@ -194,69 +160,57 @@ def test_sumfact_periodic_paths_match_generic():
         pass
 
 
-def test_sumfact_fused_slab_matches_xla():
-    """The whole-operator y-slab fusion (interpret mode on CPU) is exact
-    vs the plain XLA sum-factorized path at orders 1-3, with and without
-    the z-periodic D compression, on an anisotropic element grid."""
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_best_bind_choice_matches_bind(order):
+    """best_bind takes the z-periodic path exactly when the operator is
+    z-periodic and compressed, and agrees with the plain bind()."""
     from cmfem_tpu.ops.sumfact import SumFactoredOperator
 
-    for nxyz, order in (((3, 4, 5), 1), ((3, 4, 5), 2), ((2, 3, 4), 3)):
-        nx, ny, nz = nxyz
-        mesh = make_cartesian_mesh_3d(nx, ny, nz)
-        fes = FESpace(mesh, order)
-        ops = SpaceOps(fes, quad_order=2 * order)
-        form = (BilinearForm(ops)
-                .add_diffusion(0.3)
-                .add_convection(np.array([1.0, -2.0, 0.5]))
-                .add_mass(1.0))
-        data = form.assemble()
-        sfop = SumFactoredOperator(ops, data, nx, ny, nz, order,
+    nx, ny, nz = 3, 2, 4
+    mesh = make_cartesian_mesh_3d(nx, ny, nz)
+    ops = SpaceOps(FESpace(mesh, order), quad_order=2 * order)
+    xq = np.asarray(ops.gf.xq)
+    forms = {
+        "uniform": BilinearForm(ops).add_diffusion(0.3)
+        .add_convection(np.array([1.0, -2.0, 0.5])).add_mass(1.0),
+        "z-varying": BilinearForm(ops)
+        .add_diffusion(jnp.asarray(0.1 + xq[..., 2] ** 2)).add_mass(1.0),
+    }
+    rng = np.random.default_rng(order)
+    for name, form in forms.items():
+        sfop = SumFactoredOperator(ops, form.assemble(), nx, ny, nz, order,
                                    dtype=jnp.float64)
-        assert sfop.compressed
-
-        rng = np.random.default_rng(4)
-        u = jnp.asarray(rng.standard_normal(sfop.ndofs))
+        fn_b, D_b = sfop.best_bind()
+        periodic = sfop.z_periodic and sfop.compressed
+        assert periodic == (name == "uniform")
+        assert D_b is (sfop.Dz if periodic else sfop.D)
         fn, D = sfop.bind()
-        y_ref = np.asarray(fn(u, D))
-        scale = np.abs(y_ref).max()
-        for z_fma in (False, True):
-            fnf, Df = sfop.bind(use_fused=True, interpret=True, z_fma=z_fma)
-            np.testing.assert_allclose(np.asarray(fnf(u, Df)) / scale,
-                                       y_ref / scale, atol=1e-13)
-            # multi-element slabs (wider matmul N per grid step)
-            if ny % 2 == 0:
-                fnf2, Df2 = sfop.bind(use_fused=True, interpret=True,
-                                      slab=2, z_fma=z_fma)
-                np.testing.assert_allclose(np.asarray(fnf2(u, Df2)) / scale,
-                                           y_ref / scale, atol=1e-13)
-            if sfop.z_periodic:
-                fnfp, Dfp = sfop.bind(use_fused=True, use_periodic=True,
-                                      interpret=True, z_fma=z_fma)
-                np.testing.assert_allclose(np.asarray(fnfp(u, Dfp)) / scale,
-                                           y_ref / scale, atol=1e-13)
-                if ny % 2 == 0:
-                    fnf2p, Df2p = sfop.bind(use_fused=True,
-                                            use_periodic=True,
-                                            interpret=True, slab=2,
-                                            z_fma=z_fma)
-                    np.testing.assert_allclose(
-                        np.asarray(fnf2p(u, Df2p)) / scale,
-                        y_ref / scale, atol=1e-13)
-        # x-chunked D streaming: the fused kernel with the D slab split
-        # over a second (sequential, accumulating) grid dimension
-        for Cx in (2, 3):
-            if sfop.Kx % Cx:
-                continue
-            for zf in (False, True):
-                fnc, Dc = sfop.bind(use_fused=True, interpret=True,
-                                    x_chunks=Cx, z_fma=zf)
-                np.testing.assert_allclose(np.asarray(fnc(u, Dc)) / scale,
-                                           y_ref / scale, atol=1e-13)
-                if sfop.z_periodic:
-                    fncp, Dcp = sfop.bind(use_fused=True,
-                                          use_periodic=True,
-                                          interpret=True, x_chunks=Cx,
-                                          z_fma=zf)
-                    np.testing.assert_allclose(
-                        np.asarray(fncp(u, Dcp)) / scale,
-                        y_ref / scale, atol=1e-13)
+        u = jnp.asarray(rng.standard_normal(sfop.ndofs))
+        y = np.asarray(fn(u, D))
+        np.testing.assert_allclose(np.asarray(fn_b(u, D_b)) / np.abs(y).max(),
+                                   y / np.abs(y).max(), atol=1e-13)
+        assert sfop.min_bytes(periodic) == (
+            D_b.size * 8 + 2 * sfop.ndofs * 8)
+
+
+@pytest.mark.parametrize("structured", [False, True])
+def test_pa_operators_with_defaults_match_bilinear_apply(structured):
+    """PAOperator and StructuredPAOperator built with their defaults
+    (float32) agree with the float64 element apply to f32 rounding."""
+    n, order = 3, 2
+    mesh, fes, ops, form, data = _setup(n=n, order=order)
+    u_ent = np.random.default_rng(5).standard_normal(fes.nscalar)
+    y_ref = np.asarray(form.apply(data, jnp.asarray(u_ent)))
+    if structured:
+        grid = StructuredGrid3D(n, n, n, order)
+        lat = grid.lattice_index(fes.node_positions)
+        u_lat = np.zeros(grid.ndofs)
+        u_lat[lat] = u_ent
+        op = StructuredPAOperator(ops, data, grid)
+        y = np.asarray(op(jnp.asarray(u_lat)))[lat]
+    else:
+        op = PAOperator(ops, data)
+        y = np.asarray(op(jnp.asarray(u_ent)))
+    assert op.dtype == jnp.float32 and y.dtype == np.float32
+    scale = np.abs(y_ref).max()
+    np.testing.assert_allclose(y / scale, y_ref / scale, atol=2e-6)
